@@ -1,8 +1,8 @@
-"""hsc_tpu — TPU-native hierarchical sparse-coding codec.
+"""hsc_tpu — hierarchical sparse-coding codec for accelerators.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 `sbrodeur/hierarchical-sparse-coding` (see SURVEY.md): greedy convolutional
-matching-pursuit encoding on the MXU, multi-level atoms-of-atoms dictionaries,
+matching-pursuit encoding on the device, multi-level atoms-of-atoms dictionaries,
 distributed dictionary learning, and a real bit-packed stream format with
 bit-exact decode.
 
@@ -12,8 +12,8 @@ Layering (SURVEY.md §1):
   dictionary    — MultilevelDictionary (+ singletons, representations, Grams)
   signal        — SignalGenerator fixture factory
   oracle        — NumPy executable spec (the bit-exactness contract)
-  ops           — device compute: correlation matmuls, Pallas MP kernels
-  models        — ConvolutionalSparseCoder / Hierarchical... (TPU classes)
+  ops           — device compute: correlation, greedy loop (XLA or CUDA), decode
+  models        — ConvolutionalSparseCoder / Hierarchical... (device classes)
   learn         — sharded convolutional dictionary learning
   io            — bitstream pack/unpack, resume journal
   parallel      — mesh helpers, data-parallel & halo-exchange encode

@@ -3,7 +3,7 @@
 The reference (`hsc/modeling.py :: ConvolutionalMatchingPursuit.computeCoefficients`,
 `hsc/dataset.py :: MultilevelDictionary`) passes plain kwargs (`nbNonzeroCoefs`,
 `toleranceSnr`, `nbBlocks`, `singletonWeight`) through Python call chains.  The
-TPU rebuild freezes the whole codec contract into one dataclass that is
+rebuild freezes the whole codec contract into one dataclass that is
 serialized into the bitstream header, so decode never needs out-of-band config
 (SURVEY.md §5 "Config / flag system").
 """
@@ -52,36 +52,34 @@ class CodecConfig:
         inherently sequential per block);
         'integer': order-free exact integer reconstruction against
         rep_bits-quantized atom representations, reduced mod 2^32 — summation
-        order is irrelevant, so decode runs as dense MXU matmuls
+        order is irrelevant, so decode runs as one int32 scatter-add
         (`ops.decode.mp_decode_integer_jax`).  Requires
         ``max(num_coefs) * amp_maxcode < 2^24`` so the dense coefficient map
         stays exactly representable (enforced below).
         The DEFAULT is 'auto', resolved at construction to 'integer' when
         the capacity bound holds, else 'ordered' — serialized streams always
         carry the resolved concrete mode.  Integer mode is the recommended
-        (and default) surface: it decodes 20-28x faster on TPU (1.78
-        µs/block fused kernel vs 49.7 µs/block ordered) at a measured
-        fidelity cost of 0.000 dB at rep_bits=12 on every corpus studied
-        (flagship synthetic, music, speech — integer and ordered
-        reconstructions agree at ~73 dB SNR; BASELINE.md "decode-mode
-        fidelity").  Choose 'ordered' explicitly when bit-exact v1 float
+        (and default) surface: its decode has no sequential dependency
+        between events (speed on the H100: PERF.md), and its fidelity
+        cost at rep_bits=12 is the rep quantization noise, far below codec
+        distortion (tests/test_integer_decode.py asserts > 55 dB agreement
+        with the ordered decode).  Choose 'ordered' explicitly when bit-exact v1 float
         reconstruction is required or the budget exceeds the bound.
       rep_bits: representation quantizer width for decode_mode='integer'
         (unsigned magnitude; codes in [-(2^rep_bits - 1), 2^rep_bits - 1]).
-        Max 12 so the plane-split matmuls stay exact (docs/FORMAT.md v2).
+        Max 12 (docs/FORMAT.md v2).
       hier_init: init-correlation arithmetic for levels >= 1 (encode-side
         only; decode never recomputes scores) —
         'f32': f32-HIGHEST conv of the f32 feature map (the level-0
-        arithmetic; multi-pass bf16 emulation on the MXU);
+        arithmetic);
         'int8': exact int8 digit-plane correlation of the integer feature
         map against the int16-quantized bank
         (`oracle.mp.int8_init_scores`) — bitwise identical across backends
         (the f32 init is the one fp-order-dependent stage; the int8 one
-        has none) and faster on TPU, where the f32 level-1 init was 63%%
-        of the whole flagship 2-level encode (BASELINE.md "hierarchical
-        speed-of-light").  Requires ``num_coefs[k]*amp_maxcode <=
-        2139062143`` for every non-top level (four balanced int8 digits
-        must cover any feature-map cell — practically always true) and
+        has none; its time on the H100 is in PERF.md).  Requires
+        ``num_coefs[k]*amp_maxcode <= 2139062143`` for every non-top level
+        (four balanced int8 digits must cover any feature-map cell —
+        practically always true) and
         ``window*channels <= 65535`` at every level >= 1 (int32 plane
         accumulators).
         The DEFAULT is 'auto', resolved at construction to 'int8' whenever
@@ -140,9 +138,9 @@ class CodecConfig:
         if self.entropy not in ("fixed", "rice"):
             raise ValueError("entropy must be 'fixed' or 'rice'")
         if self.decode_mode == "auto":
-            # resolve to the fast integer decoder whenever its exactness
-            # bound holds (measured fidelity cost: 0.000 dB at rep_bits=12 —
-            # BASELINE.md); streams always carry the resolved concrete mode
+            # resolve to the order-free integer decoder whenever its
+            # exactness bound holds; streams always carry the resolved
+            # concrete mode
             object.__setattr__(
                 self,
                 "decode_mode",
@@ -156,17 +154,13 @@ class CodecConfig:
             raise ValueError("rep_bits must be in [2, 12]")
         if self.decode_mode == "integer":
             # the dense per-(position, atom) code sums must stay exactly
-            # f32-representable for the plane-split MXU matmuls
+            # f32-representable (a format bound: streams carry it)
             if max(self.num_coefs) * self.amp_maxcode >= (1 << 24):
                 raise ValueError(
                     "decode_mode='integer' requires max(num_coefs) * "
                     f"amp_maxcode < 2^24 (got {max(self.num_coefs)} * "
                     f"{self.amp_maxcode})"
                 )
-            # (the round-2 bf16-plane decoder also required
-            # max(num_coefs) * 255 < 2^24 for its f32 one-hot dots; the
-            # int8 balanced-digit decoder needs only m < 2^24, implied by
-            # the amp_maxcode bound above, so that check is gone)
         if self.hier_init == "auto":
             # resolve to the exact int8 digit-plane init whenever its
             # exactness bounds hold (see the class docstring); single-level
@@ -185,9 +179,9 @@ class CodecConfig:
         if len(self.counts) > 1:
             # the level hand-off (ops.encode.feature_map_jax / oracle
             # feature_map_from_events) builds dense exact-integer code maps
-            # with int8-digit one-hot matmuls regardless of decode_mode;
-            # validate its capacity bound here so multi-level configs fail
-            # at construction, not mid-encode at trace time
+            # regardless of decode_mode; its capacity bound is part of the
+            # format, validated here so multi-level configs fail at
+            # construction, not mid-encode
             if max(self.num_coefs[:-1]) >= (1 << 24):
                 raise ValueError(
                     "multi-level configs require num_coefs[level] < 2^24 "

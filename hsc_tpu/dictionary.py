@@ -4,20 +4,20 @@ Reference parity (SURVEY.md §2 C1–C2): `hsc/dataset.py :: MultilevelDictionar
 (generate / fromRawDictionaries / fromDecompositions / getRawDictionary /
 upToLevel / visualize) and `hsc/dataset.py :: addSingletonBases`.
 
-Design notes (TPU-first, not a port):
+Design notes (accelerator-first, not a port):
   * A level-k *raw* filter is stored dense as ``[W_k, C_k]`` float32 where
     ``C_k`` is the number of augmented atoms at level k-1 (channels).  The
     reference keeps decompositions (index/offset/weight triples) as the primary
     structure; here the dense filter IS the decomposition — nonzeros of the
     filter are exactly the (offset, channel, weight) triples.  Dense storage is
-    what the MXU wants: level-k correlation is one big matmul.
+    what a matrix unit wants: level-k correlation is one big matmul.
   * Singleton (passthrough) atoms are *derived*, never stored: augmented
     dictionary at level k = concat(raw atoms, one delta-at-(0, s) atom per
     lower channel s).  This keeps save/load minimal and the augmentation
     bit-exactly reproducible.
   * Gram tensors (filter×filter correlations at all lags) are computed here on
     the host in float64 and cast to float32 once, then shared verbatim by the
-    NumPy oracle and the TPU encoder — both run the *same* Gram-domain greedy
+    NumPy oracle and the device encoder — both run the *same* Gram-domain greedy
     update, which is what makes encode streams reproducible across backends
     (SURVEY.md §7 H2).
 """
@@ -37,7 +37,7 @@ def bank_gram(bank: np.ndarray) -> np.ndarray:
     ``G[f, g, d] = sum_{u, c} A[f, u, c] * A[g, u + d - (W-1), c]`` with zero
     padding.  Computed in float64, cast to float32 once — this is a
     bit-exactness-critical spec surface: the SAME array feeds the NumPy
-    oracle and the TPU encoder (SURVEY.md §7 H2), and the online learner
+    oracle and the device encoder (SURVEY.md §7 H2), and the online learner
     (`learn.online`) builds its per-step Gram with this same function."""
     a = np.asarray(bank, dtype=np.float64)  # [K, W, C]
     k, w, c = a.shape
@@ -252,7 +252,7 @@ class MultilevelDictionary:
 
         ``G[f, g, d] = sum_{u, c} A[f, u, c] * A[g, u + d - (W-1), c]`` with
         zero padding.  Computed in float64, cast to float32 once — this exact
-        array is shared by the NumPy oracle and the TPU encoder so their
+        array is shared by the NumPy oracle and the device encoder so their
         Gram-domain greedy updates are bitwise identical (SURVEY.md §7 H2).
         """
         if level not in self._grams:

@@ -32,7 +32,7 @@ Version history (docs/FORMAT.md is the full spec):
        entropy mode lives in the header config JSON, not the version byte.)
   v2 — header config gains decode_mode ('ordered' | 'integer') and rep_bits;
        'integer' is the order-free mod-2^32 reconstruction
-       (`oracle.mp.mp_decode_integer`) that decodes on the MXU.  Event
+       (`oracle.mp.mp_decode_integer`) that decodes as one scatter-add.  Event
        payloads are unchanged; v1 containers decode as before (missing
        config keys default to the v1 behavior).
 """
@@ -267,7 +267,7 @@ def _validate_stream(cfg: CodecConfig, level: int, stream: LevelStream) -> Level
 
     Bit-widths are ceil(log2(...)), so a corrupt (or hostile) payload can
     carry positions/atoms past the valid range while still parsing — and the
-    decode kernels write at position-derived VMEM offsets, so out-of-range
+    decoders write at position-derived offsets, so out-of-range
     values must be rejected here, not downstream."""
     npos = cfg.num_positions(level)
     ka = cfg.counts_with_singletons[level]

@@ -1,4 +1,4 @@
-"""Convolutional dictionary learning — spherical k-means on the MXU.
+"""Convolutional dictionary learning — spherical k-means as device matmuls.
 
 Reference parity (SURVEY.md §2 C8, §3.5): `hsc/modeling.py ::
 ConvolutionalDictionaryLearner.train` — window extraction (random offsets or
@@ -6,10 +6,10 @@ local-energy maxima), init from samples or noise, k-means refinement
 (assign via max |correlation|, update centroids, dead-atom reset), algorithm
 selected by string kwarg (`'samples'`, `'kmean'`).
 
-TPU-first redesign (SURVEY.md §2.3 P8):
-  * assignment = one dense ``windows @ centroids^T`` matmul on the MXU
+Accelerator-first redesign (SURVEY.md §2.3 P8):
+  * assignment = one dense ``windows @ centroids^T`` matmul
     (sign-aware: a window can match an atom with either polarity);
-  * update = signed one-hot matmul (segment-sum on the MXU);
+  * update = signed one-hot matmul (a segment-sum as a matmul);
   * the whole refinement step is a single jit'd function of (windows,
     centroids) returning (sums, counts) — the *distributed* form runs the same
     step per shard and `psum`s (sums, counts) over the mesh before the
@@ -92,8 +92,11 @@ def kmeans_assign_update(windows: jax.Array, centroids: jax.Array) -> KMeansStat
     best-|score| centroid.  Pure function of its inputs — shard over M and
     psum the outputs for the distributed form (SURVEY.md P8).
     """
+    # explicit HIGHEST: a default-precision f32 dot runs in TF32 on GPUs,
+    # which would change the learned dictionary with the platform
     scores = jnp.dot(
-        windows, centroids.T, preferred_element_type=jnp.float32
+        windows, centroids.T, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     )  # [M, K]
     best = jnp.argmax(jnp.abs(scores), axis=1)  # [M]
     bestval = jnp.take_along_axis(scores, best[:, None], axis=1)[:, 0]
@@ -102,7 +105,10 @@ def kmeans_assign_update(windows: jax.Array, centroids: jax.Array) -> KMeansStat
         jax.nn.one_hot(best, centroids.shape[0], dtype=jnp.float32)
         * sign[:, None]
     )  # [M, K] signed
-    sums = jnp.dot(onehot.T, windows, preferred_element_type=jnp.float32)
+    sums = jnp.dot(
+        onehot.T, windows, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
+    )
     counts = jnp.sum(jnp.abs(onehot), axis=0)
     objective = jnp.sum(jnp.abs(bestval))
     return KMeansStats(

@@ -10,7 +10,7 @@ alternating path lives in `learn.kmeans`; this is the *online* form:
   frozen events, so autodiff through the overlap-add is exact)  ->  optax
   update  ->  re-project atoms to unit norm.
 
-TPU-native by construction: the encode is the fused/batched device MP, the
+Device-native by construction: the encode is the batched device MP, the
 gradient is one jit'd `jax.grad`, and the distributed form psums gradients
 over the mesh before the optimizer step (replica-identical banks, P8).
 """

@@ -64,100 +64,27 @@ def mp_decode_integer_jax(
     *,
     n: int,
 ) -> jax.Array:
-    """Order-free integer reconstruction (decode_mode='integer', format v2) —
-    the MXU decode path.  Bitwise-identical to
-    `oracle.mp.mp_decode_integer` on every backend.
+    """Order-free integer reconstruction (decode_mode='integer', format v2).
+    Bitwise-identical to `oracle.mp.mp_decode_integer` on every backend.
 
     The spec (mod-2^32 integer accumulation of ``code * rep_q`` rows, then
     one f32 scale) is order-free, so instead of the sequential per-event
-    overlap-add this runs dense stages (scatter-free — XLA TPU scatter
-    compiles pathologically and executes serially).  Positions are bucketed
-    at granularity W (``p = w*q + r``): an event's W-wide patch then lands
-    entirely inside the 2W-wide row of bucket q, so the one-hot matmul only
-    needs ``npos/W`` rows instead of ``npos`` — W/2x fewer MACs than the
-    round-2 full-position form, and no chunk scan:
-
-      1. ``crow[i, (u,c)] = code_i * rep_q[atom_i, u, c]`` — an int32 gather
-         + multiply (exact: |crow| < 2^27), decomposed into four BALANCED
-         signed base-256 digits (``v = sum d_j * 256^j`` with
-         ``d_j in [-128, 127]``) — native int8;
-      2. per-event shift to the bucket offset: ``erow[i, j] =
-         crow_digits[i, j - r_i]`` via an int8 one-hot shift matmul
-         ``[j == r_i + u]`` (each output is a single selected digit);
-      3. ``bucket[q, (j,c)] = sum_i [q_i == q] * erow[i, (j,c)]`` — ONE
-         iota-compare int8 one-hot mask ``[nq, E]`` matmul'd against the
-         shifted digit planes on the MXU with int32 accumulation: pure
-         integer arithmetic, exact for any reduction order (per-digit sums
-         are <= m * 128, far inside int32);
-      4. recombine digits in int32 (wraparound = the spec's mod 2^32) and
-         fold the 2W-wide bucket rows at stride W:
-         ``out[w*q + j] += bucket[q, j]``.
-
-    (Round-2 history: the first bucketed form used non-negative base-256
-    planes in bf16 with f32 accumulation — exact only under the
-    ``m * 255 < 2^24`` dot bound; the int8 digit form is bitwise identical,
-    ~10% faster on the chip, and needs no float-exactness argument.)
+    overlap-add this is one int32 scatter-add: each valid event's row
+    ``code_i * rep_q[atom_i]`` (exact: ``|row| < 2^27``) is added at
+    ``positions_i + [0, W)``.  Integer addition wraps mod 2^32 (the spec)
+    and is exact in any order, so atomics on a GPU change nothing.  Events
+    at index >= count add zero rows.  (A one-hot int8 matmul form of the
+    same sums was miscompiled by XLA:GPU at some shapes — docs/DESIGN.md.)
 
     `amp_step` is the host-computed ``f32(f32(scale) * step)`` per block.
     """
     k, w, c = rep_q.shape
-    npos = n - w + 1
     m = positions.shape[0]
-    if m >= (1 << 24):
-        # per-digit int32 dot sums are bounded by m * 128; keep them (and
-        # the shifted recombine) far inside int32
-        raise ValueError(
-            f"integer decode event capacity must satisfy m < 2^24 (got m={m})"
-        )
     mask = jnp.arange(m) < count
     cz = jnp.where(mask, codes, 0).astype(jnp.int32)
-    crow = cz[:, None, None] * rep_q[atoms]  # [E, w, c] int32
-    digs = []
-    cur = crow
-    for _ in range(3):
-        d = ((cur + 128) & 255) - 128  # balanced digit in [-128, 127]
-        digs.append(d.astype(jnp.int8))
-        cur = (cur - d) >> 8  # exact: cur - d is divisible by 256
-    digs.append(cur.astype(jnp.int8))  # top digit (|crow| < 2^27)
-    dig_stack = jnp.stack(digs, axis=3)  # [E, w, c, 4] int8
-
-    q = positions // w
-    r = positions - q * w
-    # one-hot shift [E, w, 2w]: exactly one u per (i, j) in range, so each
-    # erow output is a single selected digit — events with index >= count
-    # have cz == 0 rows and contribute nothing
-    jj = jnp.arange(2 * w, dtype=positions.dtype)
-    uu = jnp.arange(w, dtype=positions.dtype)
-    shift_oh = (
-        (jj[None, None, :] - uu[None, :, None]) == r[:, None, None]
-    ).astype(jnp.int8)
-    erow = jax.lax.dot_general(
-        dig_stack,  # [E, w, c, 4]
-        shift_oh,  # [E, w, 2w]
-        (((1,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.int32,
-    )  # [E, c, 4, 2w]
-    erow_mat = erow.astype(jnp.int8).reshape(m, c * 4 * 2 * w)
-
-    nq = -(-npos // w)
-    nq_pad = -(-nq // 8) * 8  # sublane-align the one-hot rows
-    qiota = jnp.arange(nq_pad, dtype=positions.dtype)
-    maskq = (q[None, :] == qiota[:, None]).astype(jnp.int8)  # [nq, E]
-    mm = jax.lax.dot_general(
-        maskq, erow_mat, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    ).reshape(nq_pad, c, 4, 2 * w)
-    bucket = jnp.zeros((nq_pad, c, 2 * w), jnp.int32)
-    for j in range(4):
-        bucket = bucket + (mm[:, :, j, :] << (8 * j))
-    bucket = bucket.transpose(0, 2, 1)  # [nq_pad, 2w, c]
-    # fold: out[w*q + j] += bucket[q, j]; rows overlap their successor by w
-    lo = bucket[:, :w, :].reshape(nq_pad * w, c)
-    hi = bucket[:, w:, :].reshape(nq_pad * w, c)
-    out = (
-        jnp.pad(lo, ((0, w), (0, 0)))
-        + jnp.pad(hi, ((w, 0), (0, 0)))
-    )[:n]
+    rows = cz[:, None, None] * rep_q[atoms]  # [m, w, c] int32
+    idx = positions[:, None] + jnp.arange(w, dtype=positions.dtype)  # [m, w]
+    out = jnp.zeros((n, c), jnp.int32).at[idx].add(rows, mode="drop")
     return out.astype(jnp.float32) * amp_step.astype(jnp.float32)
 
 

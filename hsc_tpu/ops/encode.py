@@ -4,7 +4,7 @@ This is the §3.3 hot loop of the reference (`hsc/modeling.py ::
 ConvolutionalMatchingPursuit.computeCoefficients`) rebuilt for XLA semantics
 (SURVEY.md §7 stage 2):
 
-  * correlation init = MXU conv (`ops.correlate`),
+  * correlation init = one XLA conv (`ops.correlate`),
   * the greedy loop = `lax.scan` over a *static* coefficient budget with a
     `done` mask (dynamic sparsity on a static-shape compiler — SURVEY.md H3),
   * select+subtract = flat argmax + Gram-domain windowed update via
@@ -13,9 +13,9 @@ ConvolutionalMatchingPursuit.computeCoefficients`) rebuilt for XLA semantics
     (position, atom, code) stream is identical to the NumPy oracle's —
     float32 elementwise arithmetic in the same order on both backends.
 
-A fused Pallas kernel with VMEM-resident scores implements the same loop for
-performance (`ops.mp_kernels`); this module is the portable reference device
-path and the vmap'able building block.
+A CUDA kernel for Hopper implements the same loop (`ops.greedy_cuda`, chosen
+by `ops.route`); this module is the portable device path on every platform
+and the vmap'able building block.
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ def encode_init_batched(
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Batched form of `encode_init_jax`: ``xs [B, N, C]`` ->
     (scores0 [B, K, npos], e0 [B], peak [B]).  The canonical init executable
-    shared by the batched XLA path and the Pallas wrapper."""
+    shared by every greedy-loop route."""
     scores0 = jax.vmap(correlate_bank_jax, in_axes=(0, None))(xs, bank)
     e0 = jnp.sum(jnp.square(xs.astype(jnp.float32)), axis=(1, 2))
     return scores0, e0, jnp.max(jnp.abs(scores0), axis=(1, 2))
@@ -98,9 +98,9 @@ def quantizer_steps(peak, amp_bits: int):
 
     The two divisions are spec-visible (`scale` is written into the stream;
     `inv_scale` drives every code), and jitted backend division is NOT
-    reliably exactly rounded (XLA CPU uses a fast reciprocal path, Mosaic an
-    approximate one) — so the spec defines them as IEEE float32 divisions,
-    evaluated in NumPy.  Returns float32 arrays shaped like `peak`.
+    reliably exactly rounded (XLA CPU uses a fast reciprocal path, other
+    compilers an approximate one) — so the spec defines them as IEEE
+    float32 divisions, evaluated in NumPy.  Returns float32 arrays shaped like `peak`.
     """
     peak = np.asarray(peak, dtype=np.float32)
     maxcode = np.float32((1 << (amp_bits - 1)) - 1)
@@ -360,49 +360,16 @@ def feature_map_int_jax(
     sums, mod 2^32 — `oracle.mp.feature_map_int_from_events`); the input the
     int8 level->=1 init (`encode_init_int_batched`) consumes directly.
 
-    Runs as chunked iota-compare one-hot matmuls on the MXU (no scatter, no
-    serial scan): codes split into three BALANCED signed base-256 digits
-    (``v = Σ dⱼ·256ʲ``, ``dⱼ ∈ [-128, 127]`` — native int8; two digits
-    cannot cover ±32767), so both matmul operands are int8 and accumulation
-    is exact int32 for any reduction order."""
+    One int32 scatter-add of the valid events' codes: integer addition wraps
+    mod 2^32 and is exact in any order, so the map is bitwise the oracle's
+    on every backend.  (A one-hot int8 matmul form of the same sums was
+    miscompiled by XLA:GPU at some shapes — docs/DESIGN.md.)"""
     m = encoded.positions.shape[0]
-    if m >= (1 << 24):
-        # per-digit int32 dot sums are bounded by m * 128
-        raise ValueError(
-            f"feature_map_jax event capacity must satisfy m < 2^24 (got m={m})"
-        )
     mask = jnp.arange(m) < encoded.count
     cz = jnp.where(mask, encoded.codes, 0).astype(jnp.int32)
-    d0 = ((cz + 128) & 255) - 128  # balanced digit in [-128, 127]
-    rem = (cz - d0) >> 8  # exact: cz - d0 divisible by 256
-    d1 = ((rem + 128) & 255) - 128
-    d2 = (rem - d1) >> 8  # in {-1, 0, 1} for 16-bit codes
-    onehot_a = jnp.arange(k)[None, :] == encoded.atoms[:, None]  # [m, k]
-    plane_mat = jnp.concatenate(
-        [
-            jnp.where(onehot_a, d[:, None], 0).astype(jnp.int8)
-            for d in (d0, d1, d2)
-        ],
-        axis=1,
-    )  # [m, 3k]
-
-    chunk = min(2048, 1 << max(npos - 1, 0).bit_length())
-    npos_pad = -(-npos // chunk) * chunk
-    pos_col = encoded.positions[None, :]
-
-    def chunk_body(_, p0):
-        iota = p0 + jnp.arange(chunk)
-        msk = (pos_col == iota[:, None]).astype(jnp.int8)  # [chunk, m]
-        mm = jax.lax.dot_general(
-            msk, plane_mat, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        return None, mm[:, :k] + (mm[:, k : 2 * k] << 8) + (mm[:, 2 * k :] << 16)
-
-    _, parts = jax.lax.scan(
-        chunk_body, None, jnp.arange(0, npos_pad, chunk, dtype=jnp.int32)
-    )
-    return parts.reshape(npos_pad, k)[:npos]
+    return jnp.zeros((npos, k), jnp.int32).at[
+        encoded.positions, encoded.atoms
+    ].add(cz, mode="drop")
 
 
 @jax.jit
@@ -416,22 +383,15 @@ def encode_init_int_raw(
     the dense XLA producer of the `oracle.mp.int8_init_scores` raw-row
     arithmetic.  Returns (raw_scores [B, n_raw, npos] f32, peak_raw [B]);
     `int8_assemble_batched` adds the singleton passthrough rows, the block
-    energies, and the combined peak.  The sparse event kernel
-    (`ops.init_kernels.sparse_init_raw_pallas`) produces these SAME rows
-    from the emitting level's events — same integers, same fixed-grouping
-    f32 recombination, bitwise — so both producers feed one shared
-    assemble executable.
+    energies, and the combined peak.
 
-    Formulation (round-5 hardware A/B, all candidates bitwise-identical
-    integers so layout is a free choice): a SINGLE-SPATIAL-AXIS conv with
-    the four map digits folded into the channel dim and the five
-    recombination planes T_s = sum_{j+p=s} P_jp emitted as 5K output
-    channels via a zero-stuffed (s, j) weight table.  Measured 29.1 ms vs
-    36.5 for the round-4 fused 2-D digit-axis conv and 59.7 for a
-    feature_group_count=4 grouped conv at the flagship level-1 shape
-    (64-block batch) — the 2.5x MAC redundancy of the stuffed table is
-    cheaper than the 2-D form's padded digit axis, and XLA lowers grouped
-    int8 convs poorly (BASELINE "hierarchical speed-of-light").
+    Formulation (all candidates give bitwise-identical integers, so layout
+    is a free choice): a SINGLE-SPATIAL-AXIS conv with the four map digits
+    folded into the channel dim and the five recombination planes
+    T_s = sum_{j+p=s} P_jp emitted as 5K output channels via a zero-stuffed
+    (s, j) weight table.  The stuffed table costs 2.5x redundant MACs but
+    keeps one dense conv instead of a 2-D digit-axis conv or a grouped one.
+    Its time on the H100 is in PERF.md.
     """
     d0 = ((m_int + 128) & 255) - 128
     r = (m_int - d0) >> 8
@@ -486,9 +446,7 @@ def int8_assemble_batched(
     rows (exact scaled-map rows — `oracle.mp.int8_init_scores` docstring),
     compute the block energies, and fold the raw-row peak with the
     singleton peak (max is exact, so the combined value equals a single
-    max over the concatenated rows bit-for-bit).  ONE jit shared by the
-    dense conv producer and the sparse event kernel, so e0's f32 reduction
-    runs as the same compiled program on both paths."""
+    max over the concatenated rows bit-for-bit)."""
     x = m_int.astype(jnp.float32) * prev_scale[:, None, None]
     e0 = jnp.sum(jnp.square(x), axis=(1, 2))
     npos = raw_scores.shape[2]
@@ -519,10 +477,9 @@ def encode_init_int_batched(
     oracle docstring for why they bypass the quantized bank.
 
     Composes the dense conv producer (`encode_init_int_raw`) with the
-    shared assemble (`int8_assemble_batched`); the fast path is the sparse
-    event kernel (`ops.init_kernels`) feeding the SAME assemble — same
-    integers, same bits.  Returns (scores0 [B, K, npos], e0 [B], peak [B])
-    — the same triple as `encode_init_batched`.
+    shared assemble (`int8_assemble_batched`).  Returns (scores0
+    [B, K, npos], e0 [B], peak [B]) — the same triple as
+    `encode_init_batched`.
     """
     raw_scores, peak_raw = encode_init_int_raw(
         m_int, prev_scale, bank_planes, step

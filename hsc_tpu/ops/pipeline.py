@@ -1,11 +1,10 @@
 """Batch pipelining for the three-stage encode (init -> host steps -> loop).
 
 The host quantizer steps (`ops.encode.quantizer_steps`) cost one device->host
-round trip per batch for the tiny peak vector.  On a local TPU host that is
-microseconds; over a remote relay it can dominate.  This helper overlaps the
-round trips across batches: all init stages are dispatched first with async
-host copies of their peaks, then the loop stages are dispatched as each peak
-vector lands — the device stays busy while peaks are in flight.
+round trip per batch for the tiny peak vector.  This helper overlaps those
+round trips with device work: a window of init stages is dispatched first
+with async host copies of their peaks, then the loop stages are dispatched as
+each peak vector lands — the device stays busy while peaks are in flight.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ import jax
 import jax.numpy as jnp
 
 from .encode import encode_init_batched, quantizer_steps
+from .route import greedy_loop, greedy_loop_route
 
 
 def encode_batches_pipelined(
@@ -22,7 +22,7 @@ def encode_batches_pipelined(
     bank: jax.Array,
     gram_t: jax.Array,
     *,
-    backend: str = "pallas",
+    backend: str = "auto",
     window: int | None = 8,
     **settings,
 ):
@@ -31,37 +31,24 @@ def encode_batches_pipelined(
     `settings` are the static encode settings (num_coefs, amp_bits, ...).
     `window` bounds how many batches' init score buffers are live at once
     (None = dispatch everything up front — maximal overlap, unbounded
-    memory).
+    memory).  `backend` is the `ops.route` choice ('auto' or 'jax').
     """
     defaults = dict(
         amp_bits=16, tolerance_snr=None, singleton_weight=1.0, n_raw=None,
         num_select=1,
     )
     settings = {**defaults, **settings}
-    if backend == "pallas" and batches:
-        # the fused kernel supports num_select in {1, fold, 2*fold} for this
-        # geometry (pallas_num_select_options); other S run the XLA path
-        from .mp_kernels import pallas_num_select_options
+    if not batches:
+        return []
+    k, w = int(bank.shape[0]), int(bank.shape[1])
+    route = greedy_loop_route(
+        jax.default_backend(), npos=int(batches[0].shape[1]) - w + 1,
+        k=k, w=w, num_select=settings["num_select"], backend=backend,
+    )
+    vloop = greedy_loop(route, settings)
 
-        npos = int(batches[0].shape[1]) - int(bank.shape[1]) + 1
-        if settings["num_select"] not in pallas_num_select_options(
-            npos, int(bank.shape[1])
-        ):
-            backend = "jax"
-    if backend == "pallas":
-        from .mp_kernels import _mp_pallas_stage
-
-        def loop(s0, e0, sc, iv):
-            return _mp_pallas_stage(
-                s0, e0, sc, iv, bank, gram_t, interpret=False, **settings
-            )
-    else:
-        from .encode import batched_loop_for
-
-        vloop = batched_loop_for(tuple(sorted(settings.items())))
-
-        def loop(s0, e0, sc, iv):
-            return vloop(s0, e0, sc, iv, bank, gram_t)
+    def loop(s0, e0, sc, iv):
+        return vloop(s0, e0, sc, iv, bank, gram_t)
 
     outs = []
     amp_bits = settings.get("amp_bits", 16)
@@ -142,8 +129,7 @@ def encode_hierarchical_batches_pipelined(batches, coder, window: int = 4):
     def _push(level, xb):
         mp = coder.coders[level].mp
         if mp.int8_init:
-            # xb = (int32 maps, scales, events) from the integer hand-off;
-            # the events select the sparse init kernel on the pallas backend
+            # xb = (int32 maps, scales) from the integer hand-off
             s0, e0, peak = mp.init_int_batched(*xb)
         else:
             s0, e0, peak = encode_init_batched(xb, mp.bank)
@@ -163,14 +149,7 @@ def encode_hierarchical_batches_pipelined(batches, coder, window: int = 4):
         outs[level].append(enc)
         if level + 1 < n_levels:
             if coder.coders[level + 1].mp.int8_init:
-                _push(
-                    level + 1,
-                    (
-                        coder.fmap_int_batched(level)(enc),
-                        enc.scale,
-                        (enc.positions, enc.atoms, enc.codes, enc.count),
-                    ),
-                )
+                _push(level + 1, (coder.fmap_int_batched(level)(enc), enc.scale))
             else:
                 _push(level + 1, coder.fmap_batched(level)(enc))
 

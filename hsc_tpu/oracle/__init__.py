@@ -1,7 +1,7 @@
 """NumPy oracle — the executable specification of the codec.
 
 Until `/root/reference` is populated, this package is the behavioral contract
-that "bit-exact decode" is measured against (SURVEY.md §7 risk R1): the TPU
+that "bit-exact decode" is measured against (SURVEY.md §7 risk R1): the device
 path must produce streams that decode — on any backend — to exactly the bytes
 this oracle's decoder produces.
 """

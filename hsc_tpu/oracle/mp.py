@@ -9,20 +9,20 @@ Reference parity (SURVEY.md §2 C4–C7, §3.3–3.4):
     `HierarchicalConvolutionalSparseCoder` — level-by-level coding where the
     level-(k-1) coefficient map is the level-k input sequence.
 
-Deliberate spec departures from the reference (TPU-first, SURVEY.md §7 H2):
+Deliberate spec departures from the reference (accelerator-first, SURVEY.md §7 H2):
   * The greedy score update runs in the *Gram domain*: after selecting
     (t, f, c), scores in the ±(W-1) window are updated by subtracting
     ``c_hat * G[f]`` — elementwise float32, bitwise reproducible on any IEEE
     backend — instead of re-correlating an explicit residual (the reference's
     local-update strategy, whose summation order is backend-dependent).
     Mathematically identical; G is precomputed once on the host
-    (`MultilevelDictionary.gram`) and shared verbatim with the TPU encoder.
+    (`MultilevelDictionary.gram`) and shared verbatim with the device encoder.
   * Amplitudes are quantized *inside the loop* (closed-loop quantization):
     the quantized value c_hat is what gets subtracted, so encoder and decoder
     see identical state and residual error does not drift.
   * Decode is defined as summation of ``c_hat * atom`` contributions in
     **stream order** — a fixed sequential order making float32 reconstruction
-    bitwise identical between this oracle and the TPU decoder.
+    bitwise identical between this oracle and the device decoder.
 """
 
 from __future__ import annotations
@@ -69,11 +69,9 @@ def correlate_bank(x: np.ndarray, bank: np.ndarray) -> np.ndarray:
     ``x [N, C]`` against filter bank ``[K, W, C]``.
 
     This is the MP init step (`hsc/modeling.py` innerProducts init,
-    SURVEY.md §3.3) — on TPU it is an im2col matmul on the MXU; here it is the
+    SURVEY.md §3.3) — on the device it is one XLA conv; here it is the
     equivalent float32 einsum.  The ``[K, Npos]`` layout is the spec layout:
-    atoms on the sublane axis, positions on the 128-wide lane axis (long,
-    tileable), and the flat row-major argmax tie-break is therefore
-    (lowest atom, then lowest position) on both backends.
+    atoms first, positions contiguous (long, tileable).
     """
     x = np.ascontiguousarray(x, dtype=np.float32)
     k, w, c = bank.shape
@@ -111,7 +109,7 @@ def mp_encode(
     *initial correlation* is the one fp-order-dependent stage (a backend's
     conv may reduce in any order), so `scores0`/`energy0` may be injected to
     pin the loop to another backend's init (that is how the golden-loop tests
-    compare the TPU encoder against this oracle); left as None, they are
+    compare the device encoder against this oracle); left as None, they are
     computed here in NumPy and the oracle is a self-contained encoder of the
     same spec family.
 
@@ -222,7 +220,7 @@ def mp_encode(
             # Quantizer spec: round half away from zero, computed explicitly
             # as sign * floor(|x| + 0.5) — exact in float32 for |x| < 2^23 on
             # every backend (backend rint modes differ: NumPy/XLA round half
-            # to even, Mosaic rounds half away).
+            # to even, others round half away).
             y = np.float32(s * inv_scale)
             r = np.float32(np.floor(np.abs(y) + np.float32(0.5))) * np.sign(y)
             code = int(np.clip(r, -maxcode, maxcode))
@@ -302,9 +300,8 @@ def rep_quantize(bank: np.ndarray, rep_bits: int) -> tuple[np.ndarray, np.float3
 # as exact int8 digit-plane products accumulated in int32 — bitwise
 # deterministic for ANY reduction order, which removes the one
 # fp-order-dependent stage (SURVEY.md §7 H2) from every level above 0, and
-# runs on the MXU at 2x the bf16 MAC rate instead of f32-HIGHEST's multi-pass
-# emulation (measured 63%% of the whole flagship 2-level encode —
-# BASELINE.md "hierarchical speed-of-light").
+# runs as int8 matmuls with int32 accumulation instead of an f32-HIGHEST
+# conv.
 
 # 127*256 + 127: the largest magnitude whose TWO balanced base-256 digits both
 # stay in [-128, 127] (int8).
@@ -452,8 +449,8 @@ def mp_decode_integer(
     accumulated as exact integers and reduced mod 2^32 (int32 wraparound);
     ``out = f32(out_int) * amp_step`` with ``amp_step = f32(f32(scale) * step)``.
     Modular integer addition is associative and commutative, so summation
-    order is irrelevant — the TPU decoder runs this as dense plane-split MXU
-    matmuls (`ops.decode.mp_decode_integer_jax`) and produces identical
+    order is irrelevant — the device decoder runs this as one int32
+    scatter-add (`ops.decode.mp_decode_integer_jax`) and produces identical
     bytes.  With the config bound ``max(num_coefs) * amp_maxcode < 2^24`` and
     ``rep_bits <= 12`` no wraparound occurs on realistic streams; the mod is
     the deterministic overflow semantics, not an expected path.
@@ -481,7 +478,7 @@ def feature_map_from_events(stream: LevelStream, npos: int, k: int) -> np.ndarra
     ``fmap[p, a] = f32(int32(sum codes)) * scale``.  Order-free: cells hit
     once equal the old stream-order float add bit-for-bit (``f32(code) *
     scale``); duplicate hits accumulate exactly instead of rounding per add.
-    This is what lets the device hand-off run as MXU one-hot matmuls
+    This is what lets the device hand-off run as one int32 scatter-add
     (`ops.encode.feature_map_jax`) instead of a serial per-event scan.
     """
     return (
@@ -647,7 +644,7 @@ def to_top_level(
     # is the constant sum(counts[lv+1 .. level]) added to every atom of the
     # stream; validity is a max-position check per intermediate level
     # (num_positions shrinks upward).  O(streams·L + n) NumPy instead of a
-    # per-event Python loop (VERDICT r2 #8; corpus-scale re-promotion).
+    # per-event Python loop.
     lv_parts, i_parts, p_parts, a_parts, c_parts = [], [], [], [], []
     for lv, s in streams:
         if lv > level:

@@ -27,6 +27,7 @@ from ..ops.encode import (
     mp_encode_from_init,
     quantizer_steps,
 )
+from ..ops.greedy_cuda import greedy_loop_cuda
 
 
 class DataParallelEncoder:
@@ -41,53 +42,31 @@ class DataParallelEncoder:
         self._data_sharding = NamedSharding(mesh, P(axis, None, None))
         self._vec_sharding = NamedSharding(mesh, P(axis))
         self._repl = NamedSharding(mesh, P())
-        settings = {k: v for k, v in mp.settings.items()}
-        if mp.backend.startswith("pallas"):
-            # full-performance pod path: every shard runs the fused VMEM
-            # kernel on its local blocks (pallas inside shard_map); when the
-            # geometry's fold factor cannot host this num_select, the XLA
-            # multi-select path runs instead (decided at trace time from the
-            # scores shape — same emitted stream either way).  The
-            # 'pallas_interpret' backend runs the same dispatch in interpret
-            # mode so CPU tests/dryruns cover the production configuration.
-            from ..ops.mp_kernels import (
-                _mp_pallas_stage,
-                pallas_num_select_options,
-            )
+        settings = dict(mp.settings)
+        platform = mesh.devices.flat[0].platform
+        xla_loop = jax.vmap(
+            functools.partial(mp_encode_from_init, **settings),
+            in_axes=(0, 0, 0, 0, None, None),
+        )
 
-            interpret = mp.backend == "pallas_interpret"
-            w = int(mp.bank.shape[1])
-            xla_loop = jax.vmap(
-                functools.partial(mp_encode_from_init, **settings),
-                in_axes=(0, 0, 0, 0, None, None),
-            )
+        def loop(scores0, e0, scale, inv, bank, gram_t):
+            # the route is decided at trace time from the scores shape; the
+            # CUDA kernel runs on each shard's local blocks inside shard_map
+            if mp.route(scores0.shape[2], platform) == "xla":
+                return xla_loop(scores0, e0, scale, inv, bank, gram_t)
+            return jax.shard_map(
+                functools.partial(greedy_loop_cuda, **settings),
+                mesh=mesh,
+                in_specs=(P(axis, None, None), P(axis), P(axis), P(axis),
+                          P(), P()),
+                out_specs=EncodedBlock(
+                    positions=P(axis, None), atoms=P(axis, None),
+                    codes=P(axis, None), count=P(axis), scale=P(axis),
+                    energy0=P(axis), energy_res=P(axis),
+                ),
+                check_vma=False,
+            )(scores0, e0, scale, inv, bank, gram_t)
 
-            def loop(scores0, e0, scale, inv, bank, gram_t):
-                opts = pallas_num_select_options(int(scores0.shape[2]), w)
-                if settings["num_select"] not in opts:
-                    return xla_loop(scores0, e0, scale, inv, bank, gram_t)
-                return jax.shard_map(
-                    lambda s0, e, sc, iv, bk, gt: _mp_pallas_stage(
-                        s0, e, sc, iv, bk, gt, interpret=interpret, **settings
-                    ),
-                    mesh=mesh,
-                    in_specs=(P(axis, None, None), P(axis), P(axis), P(axis),
-                              P(), P()),
-                    out_specs=EncodedBlock(
-                        positions=P(axis, None), atoms=P(axis, None),
-                        codes=P(axis, None), count=P(axis), scale=P(axis),
-                        energy0=P(axis), energy_res=P(axis),
-                    ),
-                    check_vma=False,
-                )(scores0, e0, scale, inv, bank, gram_t)
-
-        else:
-            loop = jax.vmap(
-                functools.partial(mp_encode_from_init, **settings),
-                in_axes=(0, 0, 0, 0, None, None),
-            )
-            # (wrapped in a sharded jit below; DP encoders are long-lived so
-            # the per-instance jit is fine here)
         out_sharding = EncodedBlock(
             positions=NamedSharding(mesh, P(axis, None)),
             atoms=NamedSharding(mesh, P(axis, None)),
@@ -302,9 +281,8 @@ class HierarchicalDataParallelEncoder:
 class DataParallelDecoder:
     """Mesh-sharded batch reconstruction (the decode mirror of
     `DataParallelEncoder` — SURVEY.md §2.3 P1): packed stream arrays are
-    sharded over the 'data' axis and every shard runs the local decode path
-    (fused Pallas kernels on TPU, XLA elsewhere) on its blocks under one
-    sharded jit.  Per-block reconstruction is independent of batch grouping,
+    sharded over the 'data' axis and every shard runs the local XLA decode
+    on its blocks under one sharded jit.  Per-block reconstruction is independent of batch grouping,
     so rows are byte-identical to the local decoder's.
 
     The batch is padded to a multiple of the shard count with empty streams

@@ -103,7 +103,11 @@ def distributed_kmeans(
                 * own[:, None]
             )  # [K, mloc]
             rows = jax.lax.psum(
-                jnp.dot(onehot, w, preferred_element_type=jnp.float32), axis
+                jnp.dot(
+                    onehot, w, preferred_element_type=jnp.float32,
+                    precision=jax.lax.Precision.HIGHEST,
+                ),
+                axis,
             )  # [K, D] replicated
             c = apply_reseed(new, use, rows)
             return c, obj

@@ -1,13 +1,14 @@
-"""Device-mesh helpers — the TPU-native replacement for a comm backend.
+"""Device-mesh helpers — the codec's communication layer.
 
 The reference has no communication layer at all (SURVEY.md §5 "distributed
 communication backend: none"); everything here is net-new design: XLA
-collectives over ICI/DCN, selected by mesh-axis placement.  Axis convention
-(SURVEY.md §2.3):
+collectives (NCCL on GPUs) selected by mesh axis.  The cards of one host are
+joined all to all by NVLink, so every pair of devices is equally close and
+the mesh follows the algorithm alone.  Axis convention (SURVEY.md §2.3):
 
-  'data'  — block/stream data parallelism (P1; may cross DCN)
-  'model' — dictionary-atom sharding for very large K (P2; keep on ICI)
-  'seq'   — time-axis context parallelism for single huge blocks (P4; ICI)
+  'data'  — block/stream data parallelism (P1)
+  'model' — dictionary-atom sharding for very large K (P2)
+  'seq'   — time-axis context parallelism for single huge blocks (P4)
 """
 
 from __future__ import annotations
@@ -20,9 +21,8 @@ from jax.sharding import Mesh
 def make_mesh(axes: dict[str, int] | None = None, devices=None) -> Mesh:
     """Build a Mesh; default = all local devices on the 'data' axis.
 
-    Axis order follows dict order; put DCN-crossing axes ('data') first so
-    slower links carry the least-frequent collectives (bitstream gather,
-    learning psum) and ICI carries 'model'/'seq'.
+    Axis order follows dict order.  Devices are placed in `jax.devices()`
+    order: with all-to-all links no placement is faster than another.
     """
     devices = np.asarray(devices if devices is not None else jax.devices())
     if axes is None:

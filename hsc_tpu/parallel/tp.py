@@ -14,7 +14,7 @@ Per iteration:
     every shard holds exactly the rows it updates; no Gram data moves.
 
 Three small collectives per retained coefficient (same budget as the
-sequence-parallel mode); use when K is too large for one chip's VMEM.
+sequence-parallel mode); use when K is too large for one device's memory.
 """
 
 from __future__ import annotations

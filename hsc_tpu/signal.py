@@ -90,7 +90,7 @@ class SignalGenerator:
         self, nb_blocks: int, nb_samples: int, seed: int = 0
     ) -> np.ndarray:
         """Batch of independent blocks ``[nb_blocks, nb_samples]`` (the data-
-        parallel unit of the TPU codec)."""
+        parallel unit of the codec)."""
         out = np.zeros((nb_blocks, nb_samples), dtype=np.float32)
         for b in range(nb_blocks):
             ev = self.generate_events(nb_samples, seed=seed * 100003 + b)

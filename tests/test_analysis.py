@@ -108,7 +108,7 @@ def test_rate_distortion_device_matches_oracle(mld1):
 
 def test_level_diagnostics(tmp_path, mld2, signal2):
     """Per-level energy/coefficient diagnostics (reference
-    `hsc/analysis.py :: visualize*` breadth — VERDICT r3 missing #3):
+    `hsc/analysis.py :: visualize*` breadth):
     energies positive with fractions summing to 1, distribution stats match
     the streams, figure renders."""
     from hsc_tpu.analysis import (
@@ -189,8 +189,8 @@ def test_level_diagnostics_distributed_view(mld2, signal2):
 def test_decode_mode_fidelity(mld2, signal2):
     """The decode-mode decision table: same stream bytes, ordered row first,
     integer rows monotone-ish in rep_bits, and the known result that the
-    SNR cost at rep_bits=12 is negligible (<0.01 dB on every corpus
-    measured — BASELINE 'decode-mode fidelity')."""
+    SNR cost at rep_bits=12 is negligible (docs/DESIGN.md
+    'Rate-distortion notes')."""
     from hsc_tpu.analysis import decode_mode_fidelity
 
     xs = signal2[None, :]

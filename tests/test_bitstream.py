@@ -249,8 +249,8 @@ def test_v1_container_backward_compat(mld1):
 
 def test_out_of_range_fields_rejected():
     """Positions/atoms past the config geometry parse bit-wise but must be
-    rejected at unpack time — the decode kernels write at position-derived
-    VMEM offsets, so range errors cannot be allowed downstream."""
+    rejected at unpack time — the decoders write at position-derived
+    offsets, so range errors cannot be allowed downstream."""
     import pytest
 
     from hsc_tpu import make_test_config

@@ -19,9 +19,8 @@ from pinned import oracle_encode_pinned
 def test_fuzz_single_level_pipeline(seed):
     rng = np.random.default_rng(seed)
     k = int(rng.integers(3, 24))
-    # wide atom windows (W > 129) every 5th seed — they exercise the
-    # geometry-derived kernel left pad and the fold selection at large lag;
-    # blocks down to <2W reach the fold==1 short-block zone (lpad > l8)
+    # wide atom windows (W > 129) every 5th seed, with blocks down to <2W
+    # (windows that span most of the position axis)
     if seed % 5 == 4:
         w = int(rng.integers(130, 220))
         block = int(rng.integers(w * 7 // 4, w * 6))
@@ -143,12 +142,12 @@ def test_fuzz_integer_decode(seed):
 
 
 @pytest.mark.parametrize("seed", range(6))
-def test_fuzz_integer_kernel(seed):
-    """Random configs through the FUSED integer-decode kernel (interpret
-    mode): bitwise vs oracle across rep_bits / amp_bits / geometry,
-    including wide windows and non-128 event capacities."""
+def test_fuzz_integer_batch(seed):
+    """Random configs through the BATCHED integer decode (the path every
+    decode surface calls): bitwise vs oracle across rep_bits / amp_bits /
+    geometry, including wide windows and unaligned event capacities."""
     from hsc_tpu.oracle.mp import mp_decode_integer, rep_quantize
-    from hsc_tpu.ops.decode_integer_kernel import mp_decode_integer_pallas
+    from hsc_tpu.ops.decode import mp_decode_integer_batch_jax
 
     rng = np.random.default_rng(4000 + seed)
     k = int(rng.integers(3, 24))
@@ -180,10 +179,9 @@ def test_fuzz_integer_kernel(seed):
         )
         amp[b] = np.float32(np.float32(s.scale) * np.float32(step))
     out = np.asarray(
-        mp_decode_integer_pallas(
+        mp_decode_integer_batch_jax(
             jnp.asarray(pos), jnp.asarray(atm), jnp.asarray(cds),
-            jnp.asarray(cnt), jnp.asarray(amp), jnp.asarray(rep_q),
-            n=block, interpret=True,
+            jnp.asarray(cnt), jnp.asarray(amp), jnp.asarray(rep_q), n=block,
         )
     )
     for b, s in enumerate(streams):

@@ -1,4 +1,4 @@
-"""Widened container-surface mutation fuzz (VERDICT r4 #5).
+"""Widened container-surface mutation fuzz.
 
 `test_bitstream.py` covers truncations + single-bit flips on
 `unpack_corpus`; this file drives SEEDED structured and multi-byte
@@ -101,8 +101,8 @@ def test_structured_mutation_fuzz_all_surfaces(tmp_path, mld1, entropy):
         2, cfg.block_size, seed=51
     )
     enc = CorpusEncoder(mld, backend="jax", batch_size=2)
-    # CBR-truncated streams ride the same sweep (prefix streams are the
-    # VERDICT-named surface; both rate modes produce ordinary containers)
+    # CBR-truncated streams ride the same sweep (prefix streams are a
+    # fuzzed surface too; both rate modes produce ordinary containers)
     blob_vbr = enc.encode(xs, index=True)
     blob_cbr = CorpusEncoder(
         mld, backend="jax", batch_size=2, target_bps=0.4, rate_mode="corpus"

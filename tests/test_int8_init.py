@@ -202,3 +202,81 @@ def test_batch_and_pipelined_match_serial():
             np.testing.assert_array_equal(
                 s.codes, np.asarray(enc.codes)[i][:cnt]
             )
+
+
+def _event_map(rng, n, c, m):
+    """Exact int32 map [N, C] induced by m random events, with duplicate
+    (position, atom) cells — the code sums the level hand-off produces."""
+    pos = rng.integers(0, n, m)
+    atm = rng.integers(0, c, m)
+    codes = rng.integers(-32767, 32768, m)
+    pos[:4], atm[:4] = pos[0], atm[0]  # four events on one cell
+    acc = np.zeros((n, c), np.int64)
+    np.add.at(acc, (pos, atm), codes)
+    return (((acc + (1 << 31)) % (1 << 32)) - (1 << 31)).astype(np.int32)
+
+
+INIT_GEOMETRIES = [
+    # (seed, n_raw, w, c, n, m)
+    (0, 6, 7, 12, 501, 40),      # the 2-level test config's level 1
+    (1, 3, 2, 4, 130, 16),       # minimal window
+    (2, 16, 32, 17, 1000, 96),   # flagship-like level-1 shape, scaled down
+    (3, 9, 128, 5, 700, 32),     # wide window
+    (4, 1, 5, 2, 64, 8),         # single raw atom
+]
+
+
+@pytest.mark.parametrize("seed,n_raw,w,c,n,m", INIT_GEOMETRIES)
+def test_dense_int8_init_geometries_bitwise(seed, n_raw, w, c, n, m):
+    """The dense int8 conv init is bitwise `oracle.mp.int8_init_scores` on
+    event-induced maps with duplicate cells, across window and channel
+    shapes."""
+    rng = np.random.default_rng(seed)
+    maps = np.stack([_event_map(rng, n, c, m) for _ in range(2)])
+    bank = rng.standard_normal((n_raw, w, c)).astype(np.float32)
+    bq, step = bank_quantize_int16(bank)
+    planes = jnp.asarray(balanced_digits(bq, 2).astype(np.int8))
+    prev = rng.uniform(1e-5, 2.0, size=2).astype(np.float32)
+    s0, _e0, peak = encode_init_int_batched(
+        jnp.asarray(maps), jnp.asarray(prev), planes, jnp.float32(step)
+    )
+    for b in range(2):
+        want = int8_init_scores(maps[b], bq, step, prev[b])
+        assert np.asarray(s0[b]).tobytes() == want.tobytes()
+        assert np.float32(peak[b]) == np.max(np.abs(want))
+
+
+def test_int8_init_singleton_rows_are_scaled_map():
+    """Singleton rows bypass the quantized bank: exactly f32(map) * scale."""
+    from hsc_tpu.ops.encode import encode_init_int_raw, int8_assemble_batched
+
+    rng = np.random.default_rng(7)
+    n, c, w, n_raw = 200, 6, 9, 4
+    maps = _event_map(rng, n, c, 30)[None]
+    bq, step = bank_quantize_int16(rng.standard_normal((n_raw, w, c)).astype(np.float32))
+    planes = jnp.asarray(balanced_digits(bq, 2).astype(np.int8))
+    prev = np.array([0.37], np.float32)
+    raw, peak_raw = encode_init_int_raw(
+        jnp.asarray(maps), jnp.asarray(prev), planes, jnp.float32(step)
+    )
+    s0, e0, peak = int8_assemble_batched(raw, peak_raw, jnp.asarray(maps), jnp.asarray(prev))
+    npos = n - w + 1
+    sing = (maps[0][:npos].astype(np.float32) * prev[0]).T
+    assert np.asarray(s0[0, n_raw:]).tobytes() == sing.astype(np.float32).tobytes()
+    # the combined peak is the max over raw and singleton rows
+    assert np.float32(peak[0]) == max(np.float32(peak_raw[0]), np.max(np.abs(sing)))
+    # e0 is an f32 reduction (order-dependent): compare with a float64 sum
+    want_e0 = np.sum(np.square(maps[0] * np.float64(prev[0])))
+    assert np.isclose(float(e0[0]), want_e0, rtol=1e-5)
+
+
+def test_int8_init_gate_resolves_f32_on_wide_planes():
+    """hier_init='auto' falls back to 'f32' when a level's window*channels
+    would overflow the int32 plane accumulators."""
+    cfg = CodecConfig(counts=(300, 4), scales=(8, 240), block_size=4096,
+                      num_coefs=(16, 8))
+    assert cfg.window_sizes[1] * cfg.channels[1] > 65535
+    assert cfg.hier_init == "f32"
+    with pytest.raises(ValueError, match="int8"):
+        CodecConfig(counts=(300, 4), scales=(8, 240), block_size=4096,
+                    num_coefs=(16, 8), hier_init="int8")

@@ -1,6 +1,5 @@
 """decode_mode='integer' (stream format v2): order-free mod-2^32 integer
-reconstruction — the MXU decode path (VERDICT r1 #2; SURVEY.md §3.4 decode
-surface; BASELINE.md "Remaining lever")."""
+reconstruction — the order-free decode path."""
 
 import dataclasses
 
@@ -150,35 +149,31 @@ def _batch_arrays(streams, step, cap=None):
     return tuple(jnp.asarray(a) for a in (pos, atm, cds, cnt, amp))
 
 
-def test_pallas_integer_kernel_bitwise(mld1):
-    """The fused Pallas integer-decode kernel (interpret mode) is bitwise the
-    oracle — gather/shift/bucket run as one-hot MXU matmuls + uniform-roll
-    bit-shifts entirely in VMEM, but every step is the same exact integer
-    arithmetic (VERDICT r2 #2)."""
+def test_batch_integer_bitwise(mld1):
+    """The batched XLA integer decode (the one every decode surface calls)
+    is bitwise the oracle — one int32 scatter-add, the same exact integer
+    arithmetic in another order."""
     import jax.numpy as jnp
 
-    from hsc_tpu.ops.decode_integer_kernel import mp_decode_integer_pallas
+    from hsc_tpu.ops.decode import mp_decode_integer_batch_jax
 
     cfg = mld1.config
     rep_q, step = rep_quantize(mld1.augmented(0), cfg.rep_bits)
     streams, _ = _streams(mld1, nb=4, seed=5)
     args = _batch_arrays(streams, step)
     out = np.asarray(
-        mp_decode_integer_pallas(
-            *args, jnp.asarray(rep_q), n=cfg.block_size, interpret=True
-        )
+        mp_decode_integer_batch_jax(*args, jnp.asarray(rep_q), n=cfg.block_size)
     )
     for b, s in enumerate(streams):
         oracle = mp_decode_integer(s, rep_q, step, cfg.block_size)
         assert out[b].tobytes() == oracle.tobytes()
 
 
-def test_pallas_integer_kernel_count_masking(mld1):
-    """Events past `count` contribute nothing (cz masking), exactly like the
-    XLA path's padded buffers."""
+def test_batch_integer_count_masking(mld1):
+    """Events past `count` contribute nothing (cz masking)."""
     import jax.numpy as jnp
 
-    from hsc_tpu.ops.decode_integer_kernel import mp_decode_integer_pallas
+    from hsc_tpu.ops.decode import mp_decode_integer_batch_jax
 
     cfg = mld1.config
     rep_q, step = rep_quantize(mld1.augmented(0), cfg.rep_bits)
@@ -190,9 +185,8 @@ def test_pallas_integer_kernel_count_masking(mld1):
     atm = atm.at[:, -5:].set(1)
     cds = cds.at[:, -5:].set(999)
     out = np.asarray(
-        mp_decode_integer_pallas(
-            pos, atm, cds, cnt, amp, jnp.asarray(rep_q),
-            n=cfg.block_size, interpret=True,
+        mp_decode_integer_batch_jax(
+            pos, atm, cds, cnt, amp, jnp.asarray(rep_q), n=cfg.block_size
         )
     )
     for b, s in enumerate(streams):
@@ -200,11 +194,11 @@ def test_pallas_integer_kernel_count_masking(mld1):
         assert out[b].tobytes() == oracle.tobytes()
 
 
-def test_pallas_integer_kernel_wraparound():
-    """The kernel reproduces the spec's mod-2^32 wraparound bitwise."""
+def test_batch_integer_wraparound():
+    """The batched decode reproduces the spec's mod-2^32 wraparound."""
     import jax.numpy as jnp
 
-    from hsc_tpu.ops.decode_integer_kernel import mp_decode_integer_pallas
+    from hsc_tpu.ops.decode import mp_decode_integer_batch_jax
 
     w = 16
     rep_q = np.full((1, w, 1), 4095, np.int32)
@@ -219,69 +213,74 @@ def test_pallas_integer_kernel_wraparound():
     assert not np.all(oracle >= 0)
     amp_step = np.float32(np.float32(s.scale) * np.float32(2e-4))
     out = np.asarray(
-        mp_decode_integer_pallas(
+        mp_decode_integer_batch_jax(
             jnp.asarray(s.positions)[None], jnp.asarray(s.atoms)[None],
             jnp.asarray(s.codes)[None], jnp.asarray([m], np.int32),
-            jnp.asarray([amp_step], np.float32), jnp.asarray(rep_q),
-            n=n, interpret=True,
+            jnp.asarray([amp_step], np.float32), jnp.asarray(rep_q), n=n,
         )
     )
     assert out[0].tobytes() == oracle.tobytes()
 
 
-def test_pallas_integer_kernel_odd_geometry():
-    """Odd window width / non-128 event counts / tail buckets: fuzz a few
-    adversarial geometries against the oracle."""
+@pytest.mark.parametrize(
+    "w,n,k,m", [(33, 700, 5, 50), (8, 129, 3, 200), (160, 4096, 12, 64)]
+)
+def test_batch_integer_odd_geometry(w, n, k, m):
+    """Odd window widths, event capacities off any tile size, tail
+    buckets: random streams against the oracle."""
     import jax.numpy as jnp
 
-    from hsc_tpu.ops.decode_integer_kernel import mp_decode_integer_pallas
+    from hsc_tpu.ops.decode import mp_decode_integer_batch_jax
 
-    rng = np.random.default_rng(17)
-    for w, n, k, m in ((33, 700, 5, 50), (8, 129, 3, 200), (160, 4096, 12, 64)):
-        rep_q = rng.integers(-2047, 2048, (k, w, 1)).astype(np.int32)
-        npos = n - w + 1
-        cnt = int(rng.integers(0, m + 1))
-        s = LevelStream(
-            positions=rng.integers(0, npos, m).astype(np.int32),
-            atoms=rng.integers(0, k, m).astype(np.int32),
-            codes=rng.integers(-32767, 32768, m).astype(np.int32),
-            scale=np.float32(3e-4), energy0=1.0, energy_res=1.0,
-        )
-        trimmed = LevelStream(
-            positions=s.positions[:cnt], atoms=s.atoms[:cnt],
-            codes=s.codes[:cnt], scale=s.scale, energy0=1.0, energy_res=1.0,
-        )
-        oracle = mp_decode_integer(trimmed, rep_q, np.float32(1e-4), n)
-        amp_step = np.float32(np.float32(s.scale) * np.float32(1e-4))
-        out = np.asarray(
-            mp_decode_integer_pallas(
-                jnp.asarray(s.positions)[None], jnp.asarray(s.atoms)[None],
-                jnp.asarray(s.codes)[None], jnp.asarray([cnt], np.int32),
-                jnp.asarray([amp_step], np.float32), jnp.asarray(rep_q),
-                n=n, interpret=True,
-            )
-        )
-        assert out[0].tobytes() == oracle.tobytes(), f"geometry w={w} n={n}"
-
-
-def test_integer_dispatch_falls_back_multichannel():
-    """`mp_decode_integer_batch` routes multichannel reps to the XLA path
-    (the kernel is single-channel only, like the ordered decode kernel)."""
-    from hsc_tpu.ops.decode_integer_kernel import (
-        mp_decode_integer_batch,
-        pallas_integer_decode_ok,
+    rng = np.random.default_rng(17 + w)
+    rep_q = rng.integers(-2047, 2048, (k, w, 1)).astype(np.int32)
+    npos = n - w + 1
+    cnt = int(rng.integers(0, m + 1))
+    s = LevelStream(
+        positions=rng.integers(0, npos, m).astype(np.int32),
+        atoms=rng.integers(0, k, m).astype(np.int32),
+        codes=rng.integers(-32767, 32768, m).astype(np.int32),
+        scale=np.float32(3e-4), energy0=1.0, energy_res=1.0,
     )
+    trimmed = LevelStream(
+        positions=s.positions[:cnt], atoms=s.atoms[:cnt],
+        codes=s.codes[:cnt], scale=s.scale, energy0=1.0, energy_res=1.0,
+    )
+    oracle = mp_decode_integer(trimmed, rep_q, np.float32(1e-4), n)
+    amp_step = np.float32(np.float32(s.scale) * np.float32(1e-4))
+    out = np.asarray(
+        mp_decode_integer_batch_jax(
+            jnp.asarray(s.positions)[None], jnp.asarray(s.atoms)[None],
+            jnp.asarray(s.codes)[None], jnp.asarray([cnt], np.int32),
+            jnp.asarray([amp_step], np.float32), jnp.asarray(rep_q), n=n,
+        )
+    )
+    assert out[0].tobytes() == oracle.tobytes(), f"geometry w={w} n={n}"
 
-    rep_q = np.ones((3, 8, 2), np.int32)
-    assert not pallas_integer_decode_ok(rep_q, 16, 64)
+
+def test_batch_integer_multichannel():
+    """Multichannel representation banks decode through the same batched
+    path, bitwise the oracle per channel."""
     import jax.numpy as jnp
 
-    out = mp_decode_integer_batch(
-        jnp.zeros((1, 16), jnp.int32), jnp.zeros((1, 16), jnp.int32),
-        jnp.zeros((1, 16), jnp.int32), jnp.zeros((1,), jnp.int32),
-        jnp.ones((1,), jnp.float32), jnp.asarray(rep_q), n=64,
+    from hsc_tpu.ops.decode import mp_decode_integer_batch_jax
+
+    rng = np.random.default_rng(3)
+    rep_q = rng.integers(-100, 101, (3, 8, 2)).astype(np.int32)
+    s = LevelStream(
+        positions=np.array([0, 5, 56], np.int32),
+        atoms=np.array([2, 0, 1], np.int32),
+        codes=np.array([7, -3, 11], np.int32),
+        scale=np.float32(0.5), energy0=1.0, energy_res=1.0,
+    )
+    oracle = mp_decode_integer(s, rep_q, np.float32(0.25), 64)
+    out = mp_decode_integer_batch_jax(
+        jnp.asarray(s.positions)[None], jnp.asarray(s.atoms)[None],
+        jnp.asarray(s.codes)[None], jnp.asarray([3], np.int32),
+        jnp.asarray([np.float32(0.125)], np.float32), jnp.asarray(rep_q), n=64,
     )
     assert np.asarray(out).shape == (1, 64, 2)
+    assert np.asarray(out)[0].tobytes() == oracle.tobytes()
 
 
 def test_config_validation():

@@ -133,57 +133,32 @@ def test_reconstruction_quality(mld1, signal1):
     assert snr_db(signal1, recon) > 3.0
 
 
-def test_decode_kernel_dispatch_guards(mld2, monkeypatch):
-    """On a TPU backend the fused decode kernels serve single-channel
-    (signal-space) banks only; multichannel banks must take the XLA paths —
-    the guards are explicit, not an accidental ValueError (VERDICT r2 #9)."""
-    import jax
+def test_decode_multichannel_banks(mld2):
+    """Multichannel banks decode through the same batched XLA paths as the
+    signal-space (single-channel) rep banks, in both decode modes."""
+    import jax.numpy as jnp
 
-    import hsc_tpu.models.coder as coder_mod
-    from hsc_tpu.oracle.mp import LevelStream
+    from hsc_tpu.ops.decode import mp_decode_integer_batch_jax
 
     coder = HierarchicalConvolutionalSparseCoder(mld2, backend="jax")
     top = mld2.config.num_levels - 1
     gen = SignalGenerator(mld2, rates=2e-2)
     x = gen.generate_signals(1, mld2.config.block_size, seed=55)[0]
     stream = coder.encode(x)[top]
-
-    # all rep banks ARE single-channel — the kernel covers every real
-    # signal-space decode; the guard below is for the feature-space banks
     for lv in range(mld2.config.num_levels):
         assert coder._rep_banks[lv].shape[-1] == 1
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    def _boom(*a, **k):
-        raise AssertionError("pallas kernel must not see multichannel banks")
-
-    # force a multichannel rep bank: dispatch must fall back to the XLA scan
-    import jax.numpy as jnp
-
-    two_ch = jnp.concatenate(
+    one = coder.reconstruct_batch_device([stream], level=top, mode="ordered")
+    coder._rep_banks[top] = jnp.concatenate(
         [coder._rep_banks[top], coder._rep_banks[top]], axis=-1
     )
-    monkeypatch.setitem(coder._rep_banks, top, two_ch) if isinstance(
-        coder._rep_banks, dict
-    ) else None
-    if not isinstance(coder._rep_banks, dict):
-        coder._rep_banks = list(coder._rep_banks)
-        coder._rep_banks[top] = two_ch
-    monkeypatch.setattr(
-        "hsc_tpu.ops.decode_kernel.mp_decode_pallas", _boom
-    )
-    out = coder.reconstruct_batch_device([stream], level=top, mode="ordered")
-    assert out.shape[-1] == 2  # XLA path ran on the 2-channel bank
+    two = coder.reconstruct_batch_device([stream], level=top, mode="ordered")
+    assert two.shape[-1] == 2
+    # each channel is the single-channel decode, byte for byte
+    assert np.asarray(two)[..., 1].tobytes() == np.asarray(one)[..., 0].tobytes()
 
-    # integer mode: the dispatcher routes multichannel reps to XLA too
-    from hsc_tpu.ops.decode_integer_kernel import mp_decode_integer_batch
-
-    monkeypatch.setattr(
-        "hsc_tpu.ops.decode_integer_kernel.mp_decode_integer_pallas", _boom
-    )
     rep_q = np.ones((3, 8, 2), np.int32)
-    out2 = mp_decode_integer_batch(
+    out2 = mp_decode_integer_batch_jax(
         jnp.zeros((1, 16), jnp.int32), jnp.zeros((1, 16), jnp.int32),
         jnp.zeros((1, 16), jnp.int32), jnp.zeros((1,), jnp.int32),
         jnp.ones((1,), jnp.float32), jnp.asarray(rep_q), n=64,
@@ -193,32 +168,18 @@ def test_decode_kernel_dispatch_guards(mld2, monkeypatch):
 
 def test_hierarchical_multi_select_matches_oracle(mld2, signal2):
     """Hierarchical encode with num_select sweeps (bench.py's hier operating
-    point since round 4) is bitwise the pinned oracle at every level, on the
-    pallas-interpret backend — level >=1 sweeps run the multichannel
-    feature-map geometry no single-level sweep test reaches.  Hardware
-    parity check 3b pins the compiled form."""
+    point) is bitwise the pinned oracle at every level through the routed
+    loop — level >=1 sweeps run the multichannel feature-map geometry no
+    single-level sweep test reaches.  chip_smoke.py pins the CUDA route."""
     import dataclasses
 
     from hsc_tpu import MultilevelDictionary
-    from hsc_tpu.ops.mp_kernels import pallas_num_select_options
 
     cfg = mld2.config
-    ns_common = set(
-        pallas_num_select_options(
-            cfg.num_positions(0), cfg.window_sizes[0]
-        )
-    ) & set(
-        pallas_num_select_options(
-            cfg.num_positions(1), cfg.window_sizes[1]
-        )
-    )
-    ns = max(ns_common)
-    assert ns > 1, "fixture geometry must support a common sweep width"
+    ns = 8
     cfgs = dataclasses.replace(cfg, num_select=ns)
     mlds = MultilevelDictionary(cfgs, [d.copy() for d in mld2.dicts])
-    coder = HierarchicalConvolutionalSparseCoder(
-        mlds, backend="pallas_interpret"
-    )
+    coder = HierarchicalConvolutionalSparseCoder(mlds, backend="auto")
     batch = coder.encode_batch(signal2[None, :])
     refs = oracle_hierarchical_pinned(signal2, mlds)
     for level in range(cfg.num_levels):

@@ -263,7 +263,7 @@ def _to_top_level_loop(cfg, streams, level):
 def test_conversions_match_loop_spec(mld2):
     """Fuzz: the vectorized to_distributed/to_top_level equal the per-event
     loop spec exactly — same partition, same ordering, same promoted merge
-    (VERDICT r2 #8)."""
+   ."""
     from hsc_tpu.oracle import to_distributed, to_top_level
     from hsc_tpu.oracle.mp import LevelStream
 

@@ -111,7 +111,7 @@ def test_corpus_decode_stream_matches_decode(mld1):
 
 def test_decode_stream_distributed_container(mld2):
     """The streaming decoder serves distributed containers with bounded
-    memory (chunked per-level device decodes, VERDICT r2 #5), byte-identical
+    memory (chunked per-level device decodes), byte-identical
     to decode() — exercised with a batch size that forces several chunks and
     in-flight pipelining across chunk boundaries."""
     gen = SignalGenerator(mld2, rates=2e-2)
@@ -292,7 +292,7 @@ def test_corpus_encoder_with_mesh_matches_local(tmp_path, mld1):
 def test_corpus_encoder_hierarchical_mesh_matches_local(mld2):
     """Hierarchical (2-level) corpus encode under the mesh: every level's
     loop and the feature-map hand-off run sharded over 'data'; containers
-    must be byte-identical to the local path (VERDICT r1 #1)."""
+    must be byte-identical to the local path."""
     import numpy as np
     from hsc_tpu.parallel import make_mesh
 
@@ -311,7 +311,7 @@ def test_corpus_encoder_hierarchical_mesh_matches_local(mld2):
 
 def test_corpus_encoder_distributed_representation(mld2):
     """--distributed containers: smaller than top-only at identical decoded
-    output quality; round-trip decodes deterministically (VERDICT r1 #6)."""
+    output quality; round-trip decodes deterministically."""
     import numpy as np
     from hsc_tpu.io import unpack_corpus
 
@@ -385,7 +385,7 @@ def test_multihost_split_ragged():
 
 
 def test_multihost_shard_assembly(tmp_path, mld1):
-    """Faked 2-process multi-host protocol (VERDICT r1 #5): each process
+    """Faked 2-process multi-host protocol: each process
     encodes + journals its shard under global ids; process-0 assembly is
     byte-identical to the single-process container, including a ragged
     split."""
@@ -915,7 +915,7 @@ def test_journal_fingerprint_roundtrip(mld1):
 
 def test_journal_peek_done_blocks_read_only(tmp_path):
     """`EncodeJournal.peek_done_blocks` never creates files — including the
-    ADVICE scenario of a .journal present without its .blocks companion —
+    case of a .journal present without its .blocks companion —
     and matches the constructor's index for a healthy journal."""
     import os
 

@@ -1,6 +1,7 @@
 """Host utility parity tests (`hsc/utils.py` — SURVEY.md §2 C10)."""
 
 import numpy as np
+import pytest
 
 from hsc_tpu.utils import find_grid_size, normalize, overlap_add, overlap_replace, snr_db
 
@@ -60,3 +61,27 @@ def test_profile_region_writes_trace(tmp_path):
     # no-op path
     with profile_region(None):
         pass
+
+
+@pytest.mark.parametrize("env_dir", [None, "set"])
+def test_compilation_cache_dir(monkeypatch, tmp_path, env_dir):
+    """`enable_compilation_cache` defers to $JAX_COMPILATION_CACHE_DIR when
+    it is set (configuring nothing itself) and otherwise uses the path it is
+    given (the checkout's fixed `.jax_cache/` by default)."""
+    import jax
+
+    from hsc_tpu.utils import cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_dir:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+            cache.enable_compilation_cache()
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            cache.enable_compilation_cache(str(tmp_path / "own"))
+            assert jax.config.jax_compilation_cache_dir == str(tmp_path / "own")
+            assert (tmp_path / "own").is_dir()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
